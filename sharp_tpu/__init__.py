@@ -1,11 +1,11 @@
-"""sharp_tpu — a TPU-native single-cell clustering engine.
+"""sharp_tpu — an accelerator-native single-cell clustering engine.
 
 A from-scratch JAX/XLA/Pallas implementation of the SHARP algorithm family
 (ensemble sparse random projection -> per-projection hierarchical clustering
 with automatic model selection -> weighted meta-clustering (wMetaC) ->
 similarity meta-clustering (sMetaC) for partitioned / out-of-core data),
-re-designed TPU-first: static shapes, masked padding, MXU matmuls for every
-hot loop, and `jax.sharding` meshes instead of process pools.
+re-designed for an accelerator: static shapes, masked padding, matmuls for
+every hot loop, and `jax.sharding` meshes instead of process pools.
 
 Public API mirrors the reference R package's entry points
 (reference: /root/reference/R/SHARP.R:44, NAMESPACE:3-26):

@@ -5,9 +5,9 @@ Feature construction matches the reference (:46-60): the embedding input is
 ensemble-mean RP features; w >= 100 uses x0 only (+ jitter), w <= 0.01 viE
 only. PCA reduces to 50 dims when wider (:65-69).
 
-The reference then calls Rtsne's Barnes-Hut C++ t-SNE. TPU-native
+The reference then calls Rtsne's Barnes-Hut C++ t-SNE. Accelerator
 replacement: an *exact* t-SNE whose inner loop is two (n, n) matmuls per
-iteration — on the MXU, exact beats tree-based approximations up to the
+iteration — on matrix units, exact beats tree-based approximations up to the
 ~1e4-cell sizes the reference ever visualizes (it subsamples to ~1e4 for
 plots, R/plot_markers.R:136-143); larger inputs are subsampled
 proportionally per cluster.

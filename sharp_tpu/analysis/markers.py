@@ -1,4 +1,4 @@
-"""Marker-gene identification — batched rank statistics on TPU.
+"""Marker-gene identification — batched rank statistics on the device.
 
 Equivalent of the reference's per-gene parallel loop
 (R/get_marker_genes.R:25-261): per gene, nonzero fraction; rank expression
@@ -7,9 +7,9 @@ rank-sum p; fold change vs the best other cluster; then Holm adjustment,
 an *adaptive* AUC threshold so every cluster keeps at least one marker
 (:212-219), filtering and sorting (:223-236).
 
-TPU-native design: genes are processed in fixed-size chunks; the per-gene
+Design: genes are processed in fixed-size chunks; the per-gene
 rank vector comes from one vmapped sort+searchsorted; per-cluster mean
-ranks / means are one-hot matmuls (MXU); AUROC is the closed rank form
+ranks / means are one-hot matmuls; AUROC is the closed rank form
 AUC = U/(n1*n2) (ROCR's empirical AUROC equals this exactly), and the
 Wilcoxon p uses the tie-corrected normal approximation with continuity
 correction (R wilcox.test's large-sample path).

@@ -99,7 +99,7 @@ def plot_markers(
         )
         start = bounds[i]
     fig.colorbar(im, ax=ax, shrink=0.5, label="row z-score")
-    ax.set_title("SHARP-TPU marker genes (top %d per cluster)" % n_marker)
+    ax.set_title("SHARP marker genes (top %d per cluster)" % n_marker)
     if out:
         fig.savefig(out, dpi=150)
     return fig, {k: v[sel_rows][keep] for k, v in res.mginfo.items()}
@@ -110,7 +110,7 @@ def plot_embedding(
     labels: Union[np.ndarray, list],
     *,
     out: Optional[str] = None,
-    title: str = "SHARP-TPU clusters",
+    title: str = "SHARP clusters",
 ):
     """2-D scatter of the t-SNE embedding, reference palette recycled."""
     import matplotlib

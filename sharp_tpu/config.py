@@ -1,4 +1,4 @@
-"""Configuration for the SHARP-TPU pipeline.
+"""Configuration for the SHARP pipeline.
 
 Knob names and auto-scaling defaults mirror the reference driver's ~18-knob
 resolution block (reference: /root/reference/R/SHARP.R:119-228), but live in
@@ -22,7 +22,7 @@ def _ceil_to(x: int, m: int) -> int:
 
 
 def pad_dim(n: int, minimum: int = 8) -> int:
-    """Round n up to a TPU-friendly padded size.
+    """Round n up to a padded size from a short ladder of shapes.
 
     Uses power-of-two buckets up to 512 then multiples of 512: bounds the
     number of distinct compiled shapes while keeping padding waste < 25%.
@@ -69,16 +69,14 @@ class SharpConfig:
     sncells: int = 100             # testlog probe size (R/SHARP.R:879-882)
     forview: bool = True           # keep viE/x0 for visualization (R/SHARP.R:445-449)
 
-    # --- TPU-native knobs (no reference equivalent) ---
+    # --- accelerator knobs (no reference equivalent) ---
     n_devices: int = 1             # replaces n.cores (R/SHARP.R:162-167)
     ensemble_axis: int = 1         # mesh partitioning of the K ensemble axis
     dtype_compute: str = "float32"  # matmul input dtype ("bfloat16" on real runs)
-    # "auto" | "xla" | "pallas" | "pallas_bf16" | "rnn" | "rnn_bf16":
-    # auto resolves per problem size (ops/linkage.py:resolve_linkage_backend)
-    # — on TPU the f32 serial Pallas kernel for 128-aligned n_pad <= 1024,
-    # the reciprocal-NN-rounds ladder above (bf16 store / f32 arithmetic
-    # for n_pad > 1024; "rnn" forces exact f32), XLA loops on CPU and for
-    # non-ward hmethods
+    # "auto" | "xla" | "rnn" | "rnn_bf16": auto resolves per padded
+    # problem size (ops/linkage.py:resolve_linkage_backend) — the
+    # measured per-pad table on the GPU, the serial XLA loop on the CPU
+    # and for non-ward hmethods
     linkage_backend: str = "auto"
     block_pad: int = 0             # static padded block size (cells per block)
     nc_pad: int = 64               # padded per-block cluster one-hot width (>= maxN+1)

@@ -2,7 +2,7 @@
 
 The reference's per-(RP k, fold t) worker (R/SHARP.R:554-618: slice fold,
 log2, dense RP matmul, getrowColor -> get_opt_hclust) becomes one jitted
-function: a single MXU matmul projects all K members at once and the Ward/
+function: a single matmul projects all K members at once and the Ward/
 selection kernel is vmapped over the ensemble axis — the reference's
 `foreach(k) %dopar%` fan-out becomes a batch dimension.
 """
@@ -52,42 +52,18 @@ def cluster_block_ensemble(
     proj = rp_project_ensemble(Xt, R_all, K=K)          # (K, n_pad, p)
     proj = proj * real_mask[None, :, None].astype(proj.dtype)
 
-    from sharp_tpu.ops.linkage import resolve_linkage_backend
-
-    linkage_backend = resolve_linkage_backend(
-        linkage_backend, X.shape[0], hmethod
-    )
-
-    link = None
-    if linkage_backend.startswith("pallas"):
-        # batched single-kernel linkage over all K members at once
-        from sharp_tpu.ops.distance import pearson_distance, standardize_rows
-        from sharp_tpu.ops.linkage_pallas import ward_linkage_pallas
-
-        Z = jax.vmap(lambda z: standardize_rows(z, real_mask))(proj)
-        Db = jax.vmap(lambda z: pearson_distance(z, real_mask))(Z)
-        store = jnp.bfloat16 if linkage_backend == "pallas_bf16" else jnp.float32
-        link = ward_linkage_pallas(Db, store_dtype=store)
-
-    def one(Z, mg=None, ht=None):
-        from sharp_tpu.ops.linkage import LinkageResult
-
-        pre = LinkageResult(mg, ht) if mg is not None else None
+    def one(Z):
         res = opt_hclust(
             Z, real_mask, n_real, maxN,
             symmetric=False, minN=minN, ncand=ncand, nc_pad=nc_pad,
             sil_thre=sil_thre, height_Ntimes=height_Ntimes,
             N_cluster=indN_cluster,
-            precomputed_link=pre,
             hmethod=hmethod,
             linkage_backend=linkage_backend,
         )
         return res.labels, res.k, res.maxsil
 
-    if link is not None:
-        labels, k_per, maxsil = jax.vmap(one)(proj, link.merges, link.heights)
-    else:
-        labels, k_per, maxsil = jax.vmap(one)(proj)
+    labels, k_per, maxsil = jax.vmap(one)(proj)
     return BlockEnsembleResult(
         labels=labels.T,
         k_per=k_per,

@@ -1,4 +1,4 @@
-"""SHARP-TPU pipeline drivers: preprocessing, testlog, and the small path.
+"""SHARP pipeline drivers: preprocessing, testlog, and the small path.
 
 The small path (n < base.ncells) mirrors SHARP_small (R/SHARP.R:339-454):
 log2 -> K-member RP ensemble -> per-member Ward + model selection ->

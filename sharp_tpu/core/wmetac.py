@@ -1,4 +1,4 @@
-"""Weighted meta-clustering (wMetaC) — ensemble label fusion, TPU-native.
+"""Weighted meta-clustering (wMetaC) — ensemble label fusion on the device.
 
 Fuses the (n, K) matrix of per-RP cluster labels into one consensus
 labelling, following the reference algorithm (R/wMetaC.R:15-226):
@@ -15,7 +15,7 @@ labelling, following the reference algorithm (R/wMetaC.R:15-226):
   9. visualization matrix x0: 1 at own cluster,
      0.5 * count-ratio elsewhere                               (:179-208)
 
-TPU-first re-design: labels are dense integers (member k, slot c) instead
+Re-design: labels are dense integers (member k, slot c) instead
 of strings like "red_p3"; every set operation becomes a masked one-hot
 matmul; the C(allC, 2) pairwise Jaccard loop is one (allC, n) x (n, allC)
 matmul over weighted membership rows. All shapes static: the global
@@ -103,7 +103,7 @@ def wmetac(
     # --- 5: w1-weighted Jaccard similarity ------------------------------
     Mw = M * w1[None, :]
     # exact: w1-weighted membership values pass through a one-hot matmul;
-    # TPU default precision would round w1 to bf16
+    # a reduced-precision matmul would round w1
     inter = jnp.dot(
         Mw, M.T, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
@@ -170,7 +170,7 @@ def wmetac(
     finalC = jnp.where(real_mask, finalC, nc_pad - 1).astype(jnp.int32)
 
     # --- 9: visualization matrix x0 (one-hot forms: row gathers/scatters
-    # lower to element-at-a-time loops on TPU) --------------------------
+    # are kept out of the program) ---------------------------------------
     oh_final = jax.nn.one_hot(finalC, nc_pad, dtype=jnp.float32)
     own = jnp.sum(oh_final * votes, axis=1, keepdims=True)
     x0 = jnp.where(votes > 0, 0.5 * votes / jnp.maximum(own, 1e-12), 0.0)

@@ -1,8 +1,9 @@
 """ctypes bridge to the native SBLK block codec (sharp_tpu/native/blockio.cpp).
 
-Builds the shared library on first use with the system g++ (cached next to
-the source, rebuilt when the source changes); falls back to `None` when no
-toolchain is available — callers must keep a pure-numpy path.
+Builds the shared library on first use with the system g++ (cached under
+`<checkout>/.cache/native`, rebuilt when the source changes); falls back
+to `None` when no toolchain is available — callers must keep a
+pure-numpy path.
 """
 
 from __future__ import annotations
@@ -30,11 +31,9 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         return None
     with open(src, "rb") as fh:
         tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    cache = os.environ.get(
-        "SHARP_TPU_NATIVE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "sharp_tpu"),
-    )
-    os.makedirs(cache, exist_ok=True)
+    from sharp_tpu.utils.cache import local_cache_dir
+
+    cache = local_cache_dir("native")
     so = os.path.join(cache, f"blockio_{tag}.so")
     if not os.path.exists(so):
         cmd = [

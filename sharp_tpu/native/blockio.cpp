@@ -2,7 +2,7 @@
 //
 // The reference streams RDS block files and pays R's single-threaded
 // deserialize + densify on every block (R/SHARP_unlimited3.R:103-131).
-// Feeding a TPU at full rate needs the host side off the critical path:
+// Feeding an accelerator at full rate needs the host side off the critical path:
 // this codec mmaps a compact CSR container and densifies rows into the
 // caller's buffer with a thread pool, off the GIL (driven via ctypes,
 // sharp_tpu/io/native.py).

@@ -1,10 +1,10 @@
-"""Pearson-correlation distance between cells, masked and MXU-shaped.
+"""Pearson-correlation distance between cells, masked, as one matmul.
 
 The reference's per-RP clustering distance is `1 - cor(t(mat))` on the
 row-standardized projected matrix (R/get_opt_hclust.R:70-74): the distance
 between two cells is 1 minus the Pearson correlation of their p-dim RP
-feature vectors. On TPU this is one rank-p matmul: center+normalize each
-row to unit L2 norm, then D = 1 - U U^T.
+feature vectors. That is one rank-p matmul: center+normalize each row to
+unit L2 norm, then D = 1 - U U^T.
 """
 
 from __future__ import annotations
@@ -54,14 +54,15 @@ def pearson_distance(X: jax.Array, mask: jax.Array) -> jax.Array:
       pad-pad     : PAD_PAD_DIST   (merge among themselves, late)
       pad-real    : PAD_REAL_DIST  (merge with real clusters last)
       diagonal    : 0
-    `mask` (..., n) flags real cells. One matmul; everything else is VPU.
+    `mask` (..., n) flags real cells. One matmul; everything else is
+    elementwise.
     """
     U = _unit_rows(X)
-    # HIGHEST precision: TPU's default reduced-precision matmul rounds the
-    # unit rows to bf16, which can push 1 - corr slightly NEGATIVE for
+    # HIGHEST precision: a reduced-precision matmul (bf16 passes, TF32)
+    # rounds the unit rows, which can push 1 - corr slightly NEGATIVE for
     # near-identical cells. Negative distances violate the Ward
-    # monotonicity the merge-replay height sort depends on (verified
-    # on-device: default precision => replay violations, garbage clusters).
+    # monotonicity the merge-replay height sort depends on (replay
+    # violations, garbage clusters).
     corr = jnp.matmul(
         U, jnp.swapaxes(U, -1, -2),
         preferred_element_type=jnp.float32,

@@ -1,8 +1,8 @@
-"""Ward agglomerative clustering on TPU with static shapes.
+"""Ward agglomerative clustering on an accelerator with static shapes.
 
 The reference bottoms out in `stats::hclust(d, method="ward.D")`
 (R/get_opt_hclust.R:76-83), Fortran code with data-dependent control flow.
-The TPU-native replacement is a fixed-trip-count Lance-Williams loop over a
+The replacement here is a fixed-trip-count Lance-Williams loop over a
 padded (n, n) distance matrix:
 
   * All n_pad points participate; padded points carry structural distances
@@ -78,49 +78,47 @@ MONOTONE_METHODS = frozenset(
 )
 
 
-def resolve_linkage_backend(
-    backend: str, n_pad: int, hmethod: str = "ward.D"
-) -> str:
-    """Resolve the "auto" backend for a problem of padded size n_pad.
+BACKENDS = ("auto", "xla", "rnn", "rnn_bf16")
 
-    On TPU: the serial single-kernel Pallas loop in exact f32 while the
-    matrix fits VMEM; above that, reciprocal-NN rounds (`ward_linkage_rnn`)
-    with bf16 matrix STORAGE (LW arithmetic stays f32) — measured with
-    honest readback sync at n=2048/K=5 it is 1.3x the f32 ladder
-    (29.3 vs 38.2 ms/fold; the r2 "no faster" finding was an artifact of
-    block_until_ready under-waiting on this backend, see CLAUDE.md).
-    bf16 store rounding can flip near-tie merge orders vs the serial
-    reference — structure stays valid (bench parity_precheck gates it on
-    device) and cuts are identical on tie-free data (test-pinned); use
-    linkage_backend="rnn" for exact serial-order parity. The XLA loops
-    elsewhere (CPU tests, non-ward methods — the fast backends implement
-    ward.D only).
+
+def _platform() -> str:
+    """Platform that traced computations are placed on: the default
+    device's when one is set (`jax.default_device`), else the default
+    backend's."""
+    dev = jax.config.jax_default_device
+    if dev is not None:
+        return dev if isinstance(dev, str) else dev.platform
+    return jax.default_backend()
+
+
+def resolve_linkage_backend(backend: str, hmethod: str = "ward.D") -> str:
+    """Resolve the "auto" backend on the platform computations run on.
+
+    "xla" is the serial lazy-row-min loop (`ward_linkage_deferred`);
+    "rnn" / "rnn_bf16" the reciprocal-NN ladder (`ward_linkage_rnn`) with
+    f32 or bf16 matrix storage. On the GPU "auto" takes the f32 ladder at
+    every pad: it matches the serial reference's merges on tie-free data
+    and ran the 16-fold program 7.4x faster than the serial loop (PERF.md,
+    "Bring-up findings"). bf16 storage ran it faster still but flips
+    near-tie merges, so it stays an explicit choice. Elsewhere (the CPU)
+    "auto" is the serial loop.
 
     Only "auto" is downgraded for non-ward hmethods; an explicitly
-    requested fast backend combined with a non-ward hmethod is an error
-    (the fast kernels implement ward.D only — silently swapping in the
-    much slower XLA loop would hide the mismatch).
+    requested ladder with a non-ward hmethod is an error (the ladder
+    implements ward.D only — silently swapping in the much slower serial
+    loop would hide the mismatch).
     """
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown linkage backend {backend!r}; expected one of "
+            f"{', '.join(BACKENDS)}"
+        )
     if backend == "auto":
-        if hmethod != "ward.D":
-            return "xla"
-        if jax.default_backend() == "tpu":
-            # the serial Pallas kernel's VMEM slicing needs lane-aligned
-            # problem sizes (Mosaic: slices along the tiled minor dim must
-            # be multiples of 128); misaligned pads take the rnn ladder
-            if n_pad <= 1024 and n_pad % 128 == 0:
-                return "pallas"
-            return "rnn_bf16" if n_pad > 1024 else "rnn"
-        return "xla"
+        return "rnn" if hmethod == "ward.D" and _platform() == "gpu" else "xla"
     if hmethod != "ward.D" and backend != "xla":
         raise ValueError(
             f"linkage backend {backend!r} implements ward.D only; "
             f"hmethod {hmethod!r} requires backend='xla' (or 'auto')"
-        )
-    if backend.startswith("pallas") and n_pad % 128:
-        raise ValueError(
-            f"linkage backend {backend!r} requires a 128-aligned padded "
-            f"size (got n_pad={n_pad}); use 'rnn' or 'auto'"
         )
     return backend
 
@@ -284,7 +282,7 @@ def ward_linkage_deferred(
     method: str = "ward.D",
 ) -> LinkageResult:
     """ward.D agglomeration with lazy row-min caching AND deferred column
-    writes — the production TPU path.
+    writes.
 
     `ward_linkage_fast` is still memory-bound: its per-step column scatter
     `D[:, i] = newrow` makes XLA stream the whole (n, n) matrix every
@@ -459,12 +457,11 @@ def ward_linkage_deferred(
 
 @functools.partial(
     jax.jit, static_argnames=("pair_cap", "store_dtype", "compact_n",
-                              "compact_cap", "tail", "round_impl")
+                              "compact_cap")
 )
 def ward_linkage_rnn(
     D: jax.Array, pair_cap: int = 128, store_dtype=None,
-    compact_n: int = 256, compact_cap: int = 32, tail: str = "auto",
-    round_impl: str = "auto",
+    compact_n: int = 256, compact_cap: int = 32,
 ) -> LinkageResult:
     """ward.D agglomeration by reciprocal-nearest-neighbor rounds — the
     data-parallel formulation.
@@ -496,32 +493,20 @@ def ward_linkage_rnn(
     identical on tie-free data.
 
     `store_dtype` (default: D's dtype) is the matrix storage precision:
-    bfloat16 halves the round-dominating HBM traffic while the LW
-    arithmetic stays f32 — the same store-rounded discipline as the
-    serial Pallas kernel's bf16 mode.
+    bfloat16 halves the round-dominating memory traffic while the LW
+    arithmetic stays f32.
 
-    Exactness discipline (round-1 postmortem): every matmul here carries
-    either exact integers (merge indices, sizes, one-hot selectors) or
-    stored distances whose bit pattern later argmins/compares depend on.
-    TPU's default matmul precision silently rounds f32 operands to bf16 —
-    at n = 2048 that corrupted merge indices (2047 -> 2048), duplicated
-    pairs and broke replay. All dots therefore run at Precision.HIGHEST
-    (exact for f32; a no-op cost-wise for bf16 operands). Recorded
-    heights are additionally clamped to be >= the merging clusters'
-    previous record (`lasth`), so the stable height sort that recovers
-    the serial merge order stays topological even when bf16 storage
-    rounds a parent height just below its child's.
-
-    `round_impl` selects the round's full-matrix machinery: "auto"/"xla"
-    is the scatter-matmul sequence described above (the semantic
-    reference and, measured, the faster one — see the resolution note
-    below); "pallas" fuses the scatter AND the next round's row-minimum
-    pass into one streaming kernel (linkage_pallas.rnn_round_scatter,
-    1 read + 1 write of the matrix per round instead of ~5 passes) with
-    BIT-identical output — the pair logic and newrows arithmetic are
-    the same code, and both sides use the same deterministic
-    first-index argmin; "pallas_interpret" runs that kernel in
-    interpreter mode (CPU tests).
+    Exactness discipline: every matmul here carries either exact
+    integers (merge indices, sizes, one-hot selectors) or stored
+    distances whose bit pattern later argmins/compares depend on. A
+    reduced-precision matmul (bf16 passes, TF32) silently rounds f32
+    operands — at n = 2048 that corrupts merge indices (2047 -> 2048),
+    duplicates pairs and breaks replay. All dots therefore run at
+    Precision.HIGHEST (exact for f32; a no-op cost-wise for bf16
+    operands). Recorded heights are additionally clamped to be >= the
+    merging clusters' previous record (`lasth`), so the stable height
+    sort that recovers the serial merge order stays topological even
+    when bf16 storage rounds a parent height just below its child's.
     """
     n = D.shape[-1]
     dt = jnp.float32
@@ -534,27 +519,12 @@ def ward_linkage_rnn(
     mbuf = n - 1 + max(P1, P2)
     bigst = jnp.asarray(BIG, st)
 
-    # round machinery resolution: the fused Pallas round needs
-    # 128-aligned lane dims and tiling-aligned pair slabs at each level
-    if round_impl in ("pallas", "pallas_interpret"):
-        fused_want = True
-    else:
-        # "auto" = XLA rounds: the fused kernel is bit-identical and cuts
-        # HBM passes ~5 -> 3, but measured 190 vs 178 ms per 80-lane
-        # group at the production shape — the Pallas pipeline's per-step
-        # cost (~9.4 ms/round even streaming-only, vs a ~1.7 ms memory
-        # floor) eats the traffic win. Kept as an explicit opt-in;
-        # measurements in PROFILE.md.
-        fused_want = False
-    round_interp = round_impl == "pallas_interpret"
-    sub_align = 16 if jnp.dtype(st).itemsize == 2 else 8
-
-    # store-rounding must be REAL: under --xla_allow_excess_precision
-    # (forced by some TPU runtimes) XLA may elide an f32->bf16->f32
-    # astype round-trip, and whether it does depends on how the
-    # surrounding program fuses — two compiles of this very function
-    # then disagree on stored values and, through bf16 ties, on merge
-    # order. lax.reduce_precision is the non-elidable rounding op.
+    # store-rounding must be REAL: under --xla_allow_excess_precision XLA
+    # may elide an f32->bf16->f32 astype round-trip, and whether it does
+    # depends on how the surrounding program fuses — two compiles of this
+    # very function then disagree on stored values and, through bf16
+    # ties, on merge order. lax.reduce_precision is the non-elidable
+    # rounding op.
     if jnp.dtype(st) == jnp.bfloat16:
         def store_round(x):
             return jax.lax.reduce_precision(x, 8, 7)
@@ -562,26 +532,14 @@ def ward_linkage_rnn(
         def store_round(x):
             return x
 
-    def level_fused(n_loc, P):
-        # P >= 16 also keeps the kernel's row-cache output shape
-        # (.., 8, R) distinct from a (.., P, R) operand — the aliasing
-        # discipline in linkage_pallas._round_scatter_invoke
-        return bool(
-            fused_want and n_loc % 128 == 0 and P % sub_align == 0
-            and P >= 16
-        )
-
     def first_argmin(Dm):
         """Row min + FIRST-index argmin, deterministic across compiles.
 
-        jnp.argmin's tie-break is first-index per spec, but the TPU
-        lowering's reduction order — and with it which of several
-        equal bf16 entries wins — varies BETWEEN COMPILED PROGRAMS
-        (observed: two compiles of this same ladder disagreeing on 13
-        of 128 mutual pairs in round 1). min-reduces of values and of
-        masked int32 indices are exactly associative, so this
-        construction is order-independent — and it is the same
-        convention the fused kernel uses.
+        jnp.argmin's tie-break is first-index per spec, but a backend's
+        reduction order — and with it which of several equal bf16
+        entries wins — may vary between compiled programs. min-reduces
+        of values and of masked int32 indices are exactly associative,
+        so this construction is order-independent.
         """
         m = Dm.shape[-1]
         mnv = jnp.min(Dm, axis=1)
@@ -594,30 +552,13 @@ def ward_linkage_rnn(
         )
         return mnv.astype(dt), idx.astype(jnp.int32)
 
-    def row_cache(Dm, fused):
-        """(rowmin, rowarg) carried between FUSED rounds (the kernel
-        emits the next round's cache with its strip stream); the XLA
-        rounds recompute in-body — carrying a post-scatter first_argmin
-        there measured ~10% slower (the reduce does not fuse into the
-        scatter's select pass), so the dummies stay zeros."""
-        m = Dm.shape[-1]
-        if not fused:
-            return jnp.zeros((m,), dt), jnp.zeros((m,), jnp.int32)
-        return first_argmin(Dm)
-
-    def make_body(n_loc, P, fused=False):
+    def make_body(n_loc, P):
         ar = jnp.arange(n_loc)
-        arP = jnp.arange(P)
 
         def body(c):
-            (D, alive, sizes, gidx, lasth, merges, heights, rounds, cnt,
-             rmin, rarg) = c
+            D, alive, sizes, gidx, lasth, merges, heights, rounds, cnt = c
             af = alive
-            if fused:
-                rowmin = rmin
-                nn = rarg
-            else:
-                rowmin, nn = first_argmin(D)
+            rowmin, nn = first_argmin(D)
             pp = nn[nn]
             mutual = (pp == ar) & af & (rowmin < 0.5 * BIG)
             lead = mutual & (ar < nn)
@@ -630,7 +571,7 @@ def ward_linkage_rnn(
 
             OHa = (ar[None, :] == a[:, None]).astype(st) * svf[:, None]
             OHb = (ar[None, :] == b[:, None]).astype(st) * svf[:, None]
-            # ONE stacked gather matmul: D (the round's dominant HBM
+            # ONE stacked gather matmul: D (the round's dominant memory
             # operand) streams once instead of twice; each output row's
             # dot product is computed identically, so results are
             # bit-equal to separate Da/Db matmuls
@@ -690,37 +631,25 @@ def ward_linkage_rnn(
                 selfm | dying[None, :] | ~af[None, :], bigst, newrows_st
             )
 
-            if fused:
-                from sharp_tpu.ops.linkage_pallas import rnn_round_scatter
-
-                D, rmin_new, rarg_new = rnn_round_scatter(
-                    D, newrows_st, OHa, cola.astype(dt),
-                    dying.astype(dt), interpret=round_interp,
-                )
-            else:
-                rowsfull = jnp.dot(
-                    OHa.T, newrows_st, preferred_element_type=st,
-                    precision=hi,
-                )
-                # NOTE colsfull == rowsfull.T bit-exactly (single-nonzero
-                # sums of the same stored values) — but reading rowsfull
-                # transposed in the select forces a real (n, n) transpose
-                # copy on TPU and measured 37% SLOWER than this second
-                # matmul; the MXU is the cheaper transposer here
-                colsfull = jax.lax.dot_general(
-                    newrows_st, OHa,
-                    dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=st,
-                    precision=hi,
-                )
-                D = jnp.where(
-                    dying[:, None] | dying[None, :], bigst,
-                    jnp.where(
-                        cola[:, None], rowsfull,
-                        jnp.where(cola[None, :], colsfull, D),
-                    ),
-                )
-                rmin_new, rarg_new = rmin, rarg
+            rowsfull = jnp.dot(
+                OHa.T, newrows_st, preferred_element_type=st, precision=hi,
+            )
+            # colsfull == rowsfull.T bit-exactly (single-nonzero sums of
+            # the same stored values); a second matmul stands in for the
+            # transpose
+            colsfull = jax.lax.dot_general(
+                newrows_st, OHa,
+                dimension_numbers=(((0,), (0,)), ((), ())),
+                preferred_element_type=st,
+                precision=hi,
+            )
+            D = jnp.where(
+                dying[:, None] | dying[None, :], bigst,
+                jnp.where(
+                    cola[:, None], rowsfull,
+                    jnp.where(cola[None, :], colsfull, D),
+                ),
+            )
 
             alive = af & ~dying
             sizes = sizes + jnp.dot(
@@ -741,14 +670,12 @@ def ward_linkage_rnn(
             )
             lasth = jnp.where(cola, lasth_upd, lasth)
 
-            # append records at offset cnt via a one-hot matmul write —
-            # a dynamic_update_slice here would lower to a serialized
-            # scatter-while under the vmapped (batched-offset) call
+            # append records at offset cnt via an exact integer
+            # select-sum (int32 end-to-end) — a dynamic_update_slice here
+            # would lower to a serialized scatter loop under the vmapped
+            # (batched-offset) call
             ga = gidx[a]
             gb = gidx[b]
-            # append via an exact integer select-sum (int32 arithmetic
-            # end-to-end; the old f32 one-hot matmul corrupted indices
-            # > 256 under TPU default matmul precision)
             ents = jnp.stack(
                 [jnp.where(sv, ga, 0), jnp.where(sv, gb, 0)], axis=1
             )                                             # (P, 2) int32
@@ -764,29 +691,25 @@ def ward_linkage_rnn(
             )
             heights = jnp.where(row_hit, new_h, heights)
             return (D, alive, sizes, gidx, lasth, merges, heights,
-                    rounds + 1, cnt + n_pairs, rmin_new, rarg_new)
+                    rounds + 1, cnt + n_pairs)
 
         return body
 
-    merges0 = jnp.zeros((mbuf, 2), jnp.int32)
-    heights0 = jnp.zeros((mbuf,), dt)
     state = (
         D,
         jnp.ones((n,), bool),
         jnp.ones((n,), dt),
         jnp.arange(n, dtype=jnp.int32),
         jnp.zeros((n,), dt),  # lasth: running recorded-height per cluster
-        merges0,
-        heights0,
+        jnp.zeros((mbuf, 2), jnp.int32),
+        jnp.zeros((mbuf,), dt),
         jnp.asarray(0, jnp.int32),
         jnp.asarray(0, jnp.int32),
-        *row_cache(D, n > C and level_fused(n, min(pair_cap, max(n // 2, 1)))),
     )
 
-    def compact_to(state, n_from, Cn, next_fused):
+    def compact_to(state, n_from, Cn):
         """Gather the <= Cn survivors into a (Cn, Cn) subproblem."""
-        (D1, alive, sizes, gidx, lasth, merges, heights, rounds, cnt,
-         _rm, _ra) = state
+        D1, alive, sizes, gidx, lasth, merges, heights, rounds, cnt = state
         n_alive = jnp.sum(alive.astype(jnp.int32))
         surv = jnp.nonzero(alive, size=Cn, fill_value=0)[0].astype(jnp.int32)
         svC = jnp.arange(Cn) < n_alive
@@ -812,7 +735,7 @@ def ward_linkage_rnn(
         gidx2 = jnp.where(svC, gidx[surv], 0).astype(jnp.int32)
         lasth2 = jnp.where(svC, lasth[surv], 0.0)
         return (D2, svC, sizes2, gidx2, lasth2, merges, heights,
-                jnp.asarray(0, jnp.int32), cnt, *row_cache(D2, next_fused))
+                jnp.asarray(0, jnp.int32), cnt)
 
     # ladder: at each size level, run rounds only until the survivors fit
     # the next (half-size) level, then compact down. The level cap
@@ -822,80 +745,24 @@ def ward_linkage_rnn(
     lvl = n
     while lvl > C:
         nxt = max(lvl // 2, C)
-        P_lvl = min(pair_cap, lvl // 2)
-        nxt_P = min(pair_cap, nxt // 2) if nxt > C else P2
-        nxt_fused = level_fused(nxt, nxt_P) and nxt > C
 
         def cond_lvl(c, nxt=nxt):
             n_alive = jnp.sum(c[1].astype(jnp.int32))
             return (c[8] < n - 1) & (n_alive > nxt) & (c[7] < n)
 
         state = jax.lax.while_loop(
-            cond_lvl, make_body(lvl, P_lvl, level_fused(lvl, P_lvl)), state
+            cond_lvl, make_body(lvl, min(pair_cap, lvl // 2)), state
         )
-        state = compact_to(state, lvl, nxt, nxt_fused)
+        state = compact_to(state, lvl, nxt)
         lvl = nxt
 
-    # --- tail: drain the compacted subproblem -----------------------------
-    # "pallas" (auto on TPU): ONE batched-step kernel replaces ~37 XLA
-    # while-rounds at ~1.7 ms fixed dispatch cost each (measured,
-    # scripts/tune_linkage_rnn.py) — the tail was ~2/3 of the ladder's
-    # wall clock. "xla": the mutual-NN while loop (CPU, and the semantic
-    # reference for tests). "pallas_interpret": kernel in interpreter
-    # mode (CPU unit tests).
-    # Mosaic rejects lane dims not aligned to the 128 tiling (the same
-    # constraint that keeps misaligned problems off the serial Pallas
-    # kernel, e.g. allc_pad=192 at K=4) — misaligned tail sizes keep the
-    # XLA while loop. Larger tails also stay on XLA: the VMEM budget
-    # (linkage_pallas._tail_lchunk) would push the lane chunk under the
-    # 8-sublane tiling floor — Mosaic rejects the (LC, Cn) blocks, and
-    # an over-budget scratch HANGS the compile outright (CLAUDE.md;
-    # ADVICE r03). The XLA tail measures only ~10% slower at the
-    # default compact_n=256 anyway.
-    if tail == "auto":
-        from sharp_tpu.ops.linkage_pallas import _tail_lchunk
+    # tail: drain the compacted subproblem
+    def cond_tail(c):
+        return (c[8] < n - 1) & (c[7] < n)
 
-        tail = (
-            "pallas"
-            if jax.default_backend() == "tpu"
-            and lvl % 128 == 0
-            and _tail_lchunk(lvl) >= 8
-            else "xla"
-        )
-    if tail in ("pallas", "pallas_interpret"):
-        from sharp_tpu.ops.linkage_pallas import rnn_tail_pallas
-
-        (D1, aliveb, sizes1, gidx1, lasth1, merges, heights, _, cnt,
-         _rm, _ra) = state
-        mi, mj, hh = rnn_tail_pallas(
-            D1, aliveb.astype(dt), sizes1, gidx1, lasth1,
-            interpret=(tail == "pallas_interpret"),
-        )
-        Cn = D1.shape[-1]
-        n_alive = jnp.sum(aliveb.astype(jnp.int32))
-        tv = jnp.arange(Cn) < (n_alive - 1)
-        pos = jnp.arange(mbuf)
-        M = ((pos[:, None] - cnt) == jnp.arange(Cn)[None, :]) & tv[None, :]
-        row_hit = jnp.any(M, axis=1)
-        ents = jnp.stack(
-            [jnp.where(tv, mi, 0), jnp.where(tv, mj, 0)], axis=1
-        )                                                   # (Cn, 2)
-        new_ents = jnp.sum(
-            jnp.where(M[:, :, None], ents[None, :, :], 0), axis=1
-        )
-        merges = jnp.where(row_hit[:, None], new_ents, merges)
-        new_h = jnp.sum(
-            jnp.where(M, jnp.where(tv, hh, 0.0)[None, :], 0.0), axis=1
-        )
-        heights = jnp.where(row_hit, new_h, heights)
-        merges, heights = merges[: n - 1], heights[: n - 1]
-    else:
-
-        def cond2(c):
-            return (c[8] < n - 1) & (c[7] < n)
-
-        state = jax.lax.while_loop(cond2, make_body(lvl, P2), state)
-        merges, heights = state[5][: n - 1], state[6][: n - 1]
+    with jax.named_scope("ward_rnn_tail"):
+        state = jax.lax.while_loop(cond_tail, make_body(lvl, P2), state)
+    merges, heights = state[5][: n - 1], state[6][: n - 1]
 
     order = jnp.argsort(heights, stable=True)
     return LinkageResult(merges=merges[order], heights=heights[order])
@@ -907,9 +774,9 @@ def validate_merge_sequence(merges, heights, n_real: int, n_pad: int):
     Returns a list of human-readable problem strings (empty = valid):
     index range, self-merges, duplicated pairs, replay viability (every
     merged-away j must be a live representative), and height monotonicity
-    over the real merges. The round-1 TPU matmul-precision regression
-    (VERDICT.md) violated all of these; bench.py refuses to publish
-    numbers when this fails on hardware.
+    over the real merges. A reduced-precision matmul in the ladder once
+    violated all of these at once; chip_smoke.py and bench.py check every
+    device backend with it before they report anything.
     """
     import numpy as np
 
@@ -960,8 +827,7 @@ def densify_labels(lab: jax.Array, real_mask: jax.Array, nc_pad: int):
 
     Padded cells are routed to the reserved garbage slot nc_pad - 1.
 
-    Gather/scatter-free (TPU gathers over the n-sized table cost ~20x the
-    arithmetic): a merge-replay representative always carries its own
+    Gather/scatter-free: a merge-replay representative always carries its own
     index (merges relabel j -> i with i < j, so lab[r] == r exactly for
     representatives), which makes occupancy an elementwise compare, and
     the dense id of each cell a compare against the <= nc_pad

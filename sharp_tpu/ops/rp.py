@@ -1,4 +1,4 @@
-"""Very-sparse ternary random projection, TPU-native.
+"""Very-sparse ternary random projection as one dense device matmul.
 
 Semantics follow Achlioptas/Li as used by the reference (R/ranM.R:17-30):
 entries of the m x p projection matrix are {+sqrt(s), 0, -sqrt(s)} with
@@ -6,16 +6,16 @@ probabilities {1/(2s), 1 - 1/s, 1/(2s)}, s = sqrt(m)  (expected density
 1/sqrt(m), ~0.6% at 28k genes), and the projection is scaled by 1/sqrt(p)
 (R/RPmat.R:32: `projmat = 1/sqrt(p) * t(R) %*% scdata`).
 
-TPU-first design decisions (vs the reference's sparse `Matrix` path):
+Design decisions (vs the reference's sparse `Matrix` path):
   * The RP matrix is *generated on device from a PRNGKey* and kept dense —
     at ~0.6% density a 28k x 256 matrix is still only ~14 MB bf16, and a
-    dense MXU matmul beats any gather-based sparse trick at these sizes.
+    dense matmul beats any gather-based sparse trick at these sizes.
     Deterministic regeneration from the key replaces the reference's
     broadcast of shared `rM` into forked workers (R/SHARP.R:541-549).
   * All K ensemble members are concatenated to a single (m, K*p) operand so
-    each cell block is read from HBM exactly once per projection pass.
+    each cell block is read from device memory exactly once per projection pass.
   * The optional log2(1+x) transform (R/SHARP.R:343-345) is fused into the
-    matmul input — XLA folds the elementwise op into the MXU feed.
+    matmul input — XLA folds the elementwise op into the matmul operand.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def rp_project(
 
     Equivalent to the reference's `1/sqrt(p) * t(R) %*% E` on log2(E+1)
     (R/SHARP.R:579, R/RPmat.R:32) but laid out cells-as-rows so the matmul
-    contracts the gene axis on the MXU.
+    contracts the gene axis.
     """
     p = R.shape[1]
     Xc = jnp.log2(1.0 + X) if log_transform else X
@@ -77,7 +77,8 @@ def rp_project_ensemble(
 ) -> jax.Array:
     """Project X (n, m) with the stacked (m, K*p) ensemble -> (K, n, p).
 
-    One MXU matmul for the whole ensemble: X is streamed from HBM once.
+    One matmul for the whole ensemble: X is streamed from device memory
+    once.
     """
     n = X.shape[0]
     Kp = R_all.shape[1]

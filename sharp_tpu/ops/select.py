@@ -1,6 +1,6 @@
 """Optimal hierarchical clustering with automatic cluster-count selection.
 
-TPU-native equivalent of the reference's core clustering kernel
+Accelerator equivalent of the reference's core clustering kernel
 `get_opt_hclust` (R/get_opt_hclust.R:33-244): Ward linkage over a Pearson
 (or 1-S) distance, a batched sweep of candidate cuts k in [minN, maxN], and
 the three-stage selection rule chain:
@@ -128,7 +128,6 @@ def opt_hclust(
     height_Ntimes: float = 2.0,
     N_cluster: Optional[jax.Array] = None,
     height_tail: int = 10,
-    precomputed_link=None,
     hmethod: str = "ward.D",
     linkage_backend: str = "xla",
 ) -> OptHclust:
@@ -138,54 +137,34 @@ def opt_hclust(
     cut (R/get_opt_hclust.R:90-107) — the sweep still runs (static shapes)
     but selection is forced to that candidate.
 
-    `precomputed_link` lets callers supply the merge sequence from a
-    batched linkage backend (e.g. the Pallas kernel) instead of the
-    per-call XLA loop. `linkage_backend` is one of "xla" | "pallas" |
-    "pallas_bf16" | "rnn" | "rnn_bf16" (or "auto", resolved via
-    `resolve_linkage_backend`): the pallas values select the single-kernel
-    serial Pallas path, the rnn values the reciprocal-NN-rounds kernel —
-    the TPU production backend for n_pad > 1024.
+    `linkage_backend` is one of "xla" | "rnn" | "rnn_bf16" (or "auto",
+    resolved per platform by `resolve_linkage_backend`): "xla" is the
+    serial loop, the rnn values the reciprocal-NN-rounds ladder with f32
+    or bf16 matrix storage.
+    Candidate cuts replay in the Pallas-Triton kernel on the GPU
+    (ops/cutree_pallas.py; it shortens the fold program, PERF.md)
+    and in the XLA loop elsewhere.
     """
-    from sharp_tpu.ops.linkage import resolve_linkage_backend
+    from sharp_tpu.ops import linkage
 
-    linkage_backend = resolve_linkage_backend(
-        linkage_backend, real_mask.shape[0], hmethod
-    )
-    use_pallas = linkage_backend.startswith("pallas")
-    use_rnn = linkage_backend.startswith("rnn")
+    linkage_backend = linkage.resolve_linkage_backend(linkage_backend, hmethod)
     D, D_real, feats_unit = _prep_distance(mat, real_mask, symmetric)
-    if precomputed_link is not None:
-        link = precomputed_link
-    elif use_pallas:
-        from sharp_tpu.ops.linkage_pallas import ward_linkage_pallas
-
-        store = (
-            jnp.bfloat16 if linkage_backend == "pallas_bf16" else jnp.float32
-        )
-        link = ward_linkage_pallas(D, store_dtype=store)
-    elif use_rnn:
+    if linkage_backend.startswith("rnn"):
         from sharp_tpu.ops.linkage import ward_linkage_rnn
 
         store = (
             jnp.bfloat16 if linkage_backend == "rnn_bf16" else None
         )
-        # pair_cap stays at the default 128: widening it (256/512) was
-        # A/B-measured at the bench level and does NOT pay inside the
-        # fused fold program on representative data (512 was 29% SLOWER
-        # end-to-end despite a 1.65x standalone-linkage win on one
-        # synthetic; 256 was noise-level) — see PROFILE.md §4.
         link = ward_linkage_rnn(D, store_dtype=store)
     elif hmethod in ("ward.D",):
         link = ward_linkage(D)
     else:
         link = _general_linkage(D, hmethod)
 
-    # the Pallas cut-replay kernel pairs with any fast backend, but only
-    # compiles on real TPU hardware
-    if (use_pallas or use_rnn) and jax.default_backend() == "tpu":
-        from sharp_tpu.ops.linkage_pallas import cutree_multi_pallas
+    if linkage._platform() == "gpu":
+        from sharp_tpu.ops import cutree_pallas
 
-        cuts = cutree_multi_pallas(
+        cuts = cutree_pallas.cutree_multi_pallas(
             link.merges, n_real, real_mask, maxN,
             minN=minN, ncand=ncand, nc_pad=nc_pad,
         )

@@ -4,7 +4,7 @@ The reference loops k = 2..40 calling `cluster::silhouette` and
 `clues::get_CH` per cut on the same n x n distance matrix
 (R/get_opt_hclust.R:129-154). Here every candidate cut is evaluated in one
 batch: per-cell-per-cluster distance sums are a single (n, n) x (n, nc_pad)
-matmul per candidate (MXU), vmapped over the candidate axis; the distance
+matmul per candidate, vmapped over the candidate axis; the distance
 matrix is computed once and reused.
 
 Conventions matched to the reference:
@@ -24,8 +24,8 @@ import jax
 import jax.numpy as jnp
 
 # Exact matmuls throughout: counts are integers and distance sums feed
-# argmax selection decisions; TPU default matmul precision rounds f32
-# operands to bf16 (round-1 postmortem).
+# argmax selection decisions; a reduced-precision matmul (bf16 passes,
+# TF32) rounds f32 operands.
 _HI = jax.lax.Precision.HIGHEST
 
 # numpy scalar, NOT jnp.float32(...): calling a jnp scalar type creates a
@@ -65,8 +65,8 @@ def silhouette_median(
     counts = jnp.sum(oh, axis=0)                      # (nc_pad,)
     sums = jnp.dot(D_real, oh, preferred_element_type=jnp.float32, precision=_HI)  # (n, nc_pad)
 
-    # own-cluster selections as one-hot contractions — row gathers lower to
-    # element-at-a-time loops on TPU and dominate the sweep otherwise
+    # own-cluster selections as one-hot contractions instead of row
+    # gathers
     own = labels
     own_count = jnp.sum(oh * counts[None, :], axis=1)
     own_sum = jnp.sum(oh * sums, axis=1)
@@ -110,7 +110,7 @@ def ch_index(
     cent_u = unit(cent)
     # within: sum over cells of (1 - corr(x_i, centroid_own)); the row
     # gather cent_u[labels] becomes a (n, p) x (p, nc) matmul + one-hot
-    # select (TPU row gathers are element-at-a-time)
+    # select
     fc = jnp.dot(feats_unit, cent_u.T, preferred_element_type=jnp.float32, precision=_HI)
     corr_own = jnp.sum(oh * fc, axis=-1)
     W = jnp.sum(jnp.where(real_mask, 1.0 - corr_own, 0.0))

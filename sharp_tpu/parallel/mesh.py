@@ -1,12 +1,12 @@
-"""Device-mesh construction for the SHARP-TPU parallel axes.
+"""Device-mesh construction for the SHARP parallel axes.
 
 The framework's two parallel axes replace the reference's fork-pool
 (R/SHARP.R:167, `foreach(k) %:% foreach(t) %dopar%`):
 
   * "data" — cell folds/blocks (the reference's T axis); scales across
-    chips/hosts; the central axis (SURVEY.md §2.2).
+    devices/hosts; the central axis (SURVEY.md §2.2).
   * "ens"  — the K-member RP ensemble (the reference's K axis); a second
-    mesh dimension when chips outnumber folds.
+    mesh dimension when devices outnumber folds.
 
 RP matrices are *regenerated* from the shared PRNGKey on every host
 instead of broadcast (sharp_tpu/utils/prng.py).
@@ -40,23 +40,21 @@ def make_mesh(
 
 
 def resolve_mesh(cfg) -> Optional[Mesh]:
-    """Mesh for cfg.n_devices chips, or None for the single-device path.
+    """Mesh for cfg.n_devices devices, or None for the single-device path.
 
-    The "ens" axis is carved out only when cfg.ensemble_axis divides both
-    ensize_K and n_devices; a requested-but-undividable ensemble_axis is
-    REJECTED loudly (same fail-loud policy as resolve_linkage_backend)
+    Fewer visible devices than requested is an error, not a silent
+    single-device run. The "ens" axis is carved out only when
+    cfg.ensemble_axis divides both ensize_K and n_devices; a
+    requested-but-undividable ensemble_axis is rejected the same way
     instead of silently running ens-replicated.
     """
     if cfg.n_devices <= 1:
         return None
     if len(jax.devices()) < cfg.n_devices:
-        from sharp_tpu.utils.timers import log
-
-        log(
-            f"WARNING: n_devices={cfg.n_devices} requested but only "
-            f"{len(jax.devices())} devices visible — running single-device"
+        raise ValueError(
+            f"n_devices={cfg.n_devices} requested but only "
+            f"{len(jax.devices())} devices are visible"
         )
-        return None
     n_ens = 1
     if cfg.ensemble_axis > 1:
         if (

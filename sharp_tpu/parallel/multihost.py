@@ -48,17 +48,19 @@ def distributed_init(
         process_id = process_id if process_id is not None else int(
             os.environ.get("JAX_PROCESS_ID", "0")
         )
-        try:
-            # CPU backends need an explicit collectives implementation
-            # for cross-process allgather; harmless for TPU (ICI/DCN
-            # collectives are native)
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:
-            pass
+        # CPU backends need an explicit collectives implementation for
+        # the cross-process allgather
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+        )
+    if jax.process_count() > 1 and jax.default_backend() != "cpu":
+        raise NotImplementedError(
+            "multi-process streaming is proven over CPU gloo collectives "
+            f"only, not on {jax.default_backend()!r}; on one host drive "
+            "several devices from one process with n_devices instead"
         )
     return jax.process_index(), jax.process_count()
 

@@ -1,4 +1,4 @@
-"""Result schema for the SHARP-TPU pipeline.
+"""Result schema for the SHARP pipeline.
 
 Mirrors the reference's result list (`pred_clusters`,
 `unique_pred_clusters`, `distr_pred_clusters`, `N.pred_cluster`, `x0`,
@@ -31,7 +31,7 @@ class SharpResult:
 
     def summary(self) -> str:
         lines = [
-            f"SHARP-TPU result: {len(self.pred_clusters)} cells, "
+            f"SHARP result: {len(self.pred_clusters)} cells, "
             f"{self.N_pred_cluster} clusters",
             f"cluster sizes: {self.distr_pred_clusters}",
         ]

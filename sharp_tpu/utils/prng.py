@@ -5,7 +5,7 @@ The reference pins all stochastic stages from one integer seed `rN.seed`
 R/SHARP.R:360, cell reshuffle seed R/SHARP.R:497). We map that to a single
 `jax.random.PRNGKey` with `fold_in` sub-streams, which additionally gives us
 *deterministic regeneration* of the shared RP matrices on every host — the
-TPU-native replacement for the reference's copy-on-write broadcast of `rM`
+replacement for the reference's copy-on-write broadcast of `rM`
 into forked workers (R/SHARP.R:541-554).
 
 Stream layout:

@@ -182,8 +182,8 @@ def test_smetac_second_best_override_masks_invalid_candidates():
 
 
 def test_fold_program_rnn_backend_matches_xla():
-    """The rnn linkage backend (pure XLA, the TPU production path for
-    n_pad > 1024) produces the same fold summary as the xla loop."""
+    """The rnn linkage backend (pure XLA, the GPU route for the fold and
+    meta pads) produces the same fold summary as the xla loop."""
     import jax.numpy as jnp
 
     from sharp_tpu.config import resolve_config

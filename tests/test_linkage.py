@@ -30,6 +30,14 @@ def _random_problem(n, p, seed, npad=None):
     return X, jnp.asarray(Xp), jnp.asarray(mask)
 
 
+def _problem(n, nreal, p, seed):
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, p), np.float32)
+    X[:nreal] = rng.normal(size=(nreal, p))
+    mask = jnp.asarray(np.arange(n) < nreal)
+    return pearson_distance(standardize_rows(jnp.asarray(X), mask), mask)
+
+
 def _corr_dist(X):
     C = np.corrcoef(X)
     return 1.0 - C
@@ -335,75 +343,74 @@ class TestRNNLinkage:
             rtol=1e-5,
         )
 
-    @pytest.mark.parametrize("n,nreal", [(128, 128), (192, 160), (320, 300)])
-    def test_pallas_tail_matches_xla_tail(self, n, nreal):
-        """The batched-step Pallas tail (TPU production path, interpreted
-        here) must produce the same cuts as the XLA while-loop tail —
-        including misaligned sizes (192) and ladder+compaction (320)."""
-        from sharp_tpu.ops.linkage import (
-            validate_merge_sequence,
-            ward_linkage_rnn,
-        )
+    @pytest.mark.parametrize("n,nreal", [(64, 50), (128, 128), (256, 230)])
+    def test_serves_small_pads_bit_equal(self, n, nreal):
+        """The ladder serves every pad the serial kernel once took: merges
+        bit-equal to the reference loop on tie-free data, every cut
+        identical, heights equal up to f32 association order."""
+        from sharp_tpu.ops.linkage import ward_linkage_rnn
 
-        rng = np.random.default_rng(11)
-        X = np.zeros((n, 24), np.float32)
-        X[:nreal] = rng.normal(size=(nreal, 24))
+        D = _problem(n, nreal, 24, seed=0)
         mask = jnp.asarray(np.arange(n) < nreal)
-        D = pearson_distance(standardize_rows(jnp.asarray(X), mask), mask)
-        r1 = ward_linkage_rnn(D, tail="xla")
-        r2 = ward_linkage_rnn(D, tail="pallas_interpret")
-        assert not validate_merge_sequence(r2.merges, r2.heights, nreal, n)
+        r1 = ward_linkage(D)
+        r2 = ward_linkage_rnn(D)
+        np.testing.assert_array_equal(
+            np.asarray(r1.merges)[: nreal - 1],
+            np.asarray(r2.merges)[: nreal - 1],
+        )
+        np.testing.assert_allclose(
+            np.asarray(r1.heights)[: nreal - 1],
+            np.asarray(r2.heights)[: nreal - 1],
+            rtol=1e-6,
+        )
         c1 = cutree_multi(r1.merges, jnp.asarray(nreal), mask,
-                          jnp.asarray(40), minN=2, ncand=20, nc_pad=48)
+                          jnp.asarray(40), minN=2, ncand=39, nc_pad=48)
         c2 = cutree_multi(r2.merges, jnp.asarray(nreal), mask,
-                          jnp.asarray(40), minN=2, ncand=20, nc_pad=48)
+                          jnp.asarray(40), minN=2, ncand=39, nc_pad=48)
         np.testing.assert_array_equal(
             np.asarray(c1.labels), np.asarray(c2.labels)
         )
 
-    @pytest.mark.parametrize("st", [None, "bf16"])
-    def test_fused_round_bit_identical(self, st):
-        """The fused Pallas round scatter (rnn_round_scatter, the TPU
-        production round for n_pad > 1024 — interpreted here) must be
-        BIT-identical to the XLA rowsfull/colsfull scatter sequence:
-        same merges, same heights, both storage dtypes, including the
-        ladder compaction boundary and the vmapped (custom_vmap) form."""
-        from sharp_tpu.ops.linkage import (
-            validate_merge_sequence,
-            ward_linkage_rnn,
-        )
+    def test_serves_small_pads_batched(self):
+        """The ensemble calling convention (vmap over K members) at the
+        default pair cap: bit-equal merges for every member."""
+        from sharp_tpu.ops.linkage import ward_linkage_rnn
 
-        std = jnp.bfloat16 if st == "bf16" else None
-        rng = np.random.default_rng(7)
-        n, nreal = 512, 490
-        types = rng.integers(0, 9, nreal)
-        cents = rng.normal(size=(9, 48)) * 3.0
-        X = np.zeros((n, 48), np.float32)
-        X[:nreal] = cents[types] + rng.normal(size=(nreal, 48))
-        mask = jnp.asarray(np.arange(n) < nreal)
-        D = pearson_distance(standardize_rows(jnp.asarray(X), mask), mask)
-        r1 = ward_linkage_rnn(D, store_dtype=std, round_impl="xla")
-        r2 = ward_linkage_rnn(
-            D, store_dtype=std, round_impl="pallas_interpret"
-        )
-        assert not validate_merge_sequence(r2.merges, r2.heights, nreal, n)
+        K, n = 3, 96
+        rng = np.random.default_rng(1)
+        Xb = jnp.asarray(rng.normal(size=(K, n, 16)), jnp.float32)
+        mask = jnp.ones(n, bool)
+        Db = jax.vmap(
+            lambda x: pearson_distance(standardize_rows(x, mask), mask)
+        )(Xb)
+        r1 = jax.vmap(ward_linkage)(Db)
+        r2 = jax.vmap(ward_linkage_rnn)(Db)
         np.testing.assert_array_equal(
             np.asarray(r1.merges), np.asarray(r2.merges)
         )
-        np.testing.assert_array_equal(
-            np.asarray(r1.heights), np.asarray(r2.heights)
-        )
-        # vmapped (the fold program's calling convention): batch folds
-        # into the kernel lane axis via the custom_vmap rule
-        Db = jnp.stack([D, D * 1.25])
-        rb = jax.vmap(
-            lambda d: ward_linkage_rnn(
-                d, store_dtype=std, round_impl="pallas_interpret"
-            )
-        )(Db)
-        np.testing.assert_array_equal(
-            np.asarray(rb.merges)[0], np.asarray(r1.merges)
-        )
+
+    def test_bf16_storage_small_pad_quality(self):
+        """bf16 storage at a meta-problem pad: merge order may flip on
+        ties but the planted cut agrees with the f32 reference."""
+        from sharp_tpu.ops.linkage import ward_linkage_rnn
+
+        n = 128
+        rng = np.random.default_rng(2)
+        # well-separated blobs so rounding can't change the k=4 cut
+        y = rng.integers(0, 4, n)
+        X = (3.0 * np.eye(4)[y] @ rng.normal(size=(4, 16))
+             + 0.1 * rng.normal(size=(n, 16))).astype(np.float32)
+        mask = jnp.ones(n, bool)
+        D = pearson_distance(standardize_rows(jnp.asarray(X), mask), mask)
+        r1 = ward_linkage(D)
+        r2 = ward_linkage_rnn(D, store_dtype=jnp.bfloat16)
+        c1 = cutree_multi(r1.merges, jnp.asarray(n), mask, jnp.asarray(40),
+                          minN=4, ncand=1, nc_pad=16)
+        c2 = cutree_multi(r2.merges, jnp.asarray(n), mask, jnp.asarray(40),
+                          minN=4, ncand=1, nc_pad=16)
+        assert adjusted_rand_score(
+            np.asarray(c1.labels)[0], np.asarray(c2.labels)[0]
+        ) == pytest.approx(1.0)
 
     def test_exact_ties_duplicates(self):
         """Duplicate points create exact zero-distance ties; the stable
@@ -427,11 +434,10 @@ class TestRNNLinkage:
         ) == pytest.approx(1.0)
 
 class TestProductionShape:
-    """The backend/shape actually selected on TPU hardware
-    (resolve_linkage_backend: rnn at n_pad = 2048 for ~2000-cell folds) —
-    exercised on CPU so backend drift is caught without hardware
-    (round-1 postmortem: the one backend test ran at n_pad = 256 while
-    production ran rnn_bf16 at 2048)."""
+    """The backends the GPU routing selects at the fold pad (n_pad = 2048
+    for ~2000-cell folds) — exercised on CPU so backend drift is caught
+    without hardware (a backend test at n_pad = 256 alone once missed a
+    regression that only the production pad showed)."""
 
     @pytest.fixture(scope="class")
     def problem(self):
